@@ -1,11 +1,11 @@
 #!/usr/bin/env python
-"""Batched scenario solving — thousands of independent LPs per second per chip.
+"""Batched scenario solving — thousands of independent LPs per launch.
 
-Demonstrates the two batched engines (BASELINE config 3):
-  * the Pallas megakernel (`solve_batch_pallas`): whole simplex loop in VMEM,
-    f32 iteration + exact f64 certification — the TPU throughput path;
-  * the XLA f64 engine (`solve_batch`): the general engine vmapped — the
-    reference path used as a fallback for unverified lanes.
+Demonstrates the certified batched entry point (BASELINE config 3):
+`solve_batch_certified` runs the route `routes.batched_route` picks (on an
+NVIDIA GPU the one-LP-per-program Triton kernel, elsewhere the vmapped f32
+engine), certifies every lane's basis exactly in host f64, and re-solves
+the rare uncertified lane with scipy-HiGHS.
 
 Run: python examples/scenario_batch.py [batch] [m] [nv]
 """
@@ -15,43 +15,28 @@ from __future__ import annotations
 import sys
 import time
 
-import jax
 import numpy as np
 
-from minilp_tpu.options import SolverOptions
-from minilp_tpu.parallel.batched import make_random_batch, solve_batch
-from minilp_tpu.ops.kernels.batched_simplex import solve_batch_pallas
+from minilp_tpu import routes
+from minilp_tpu.parallel.batched import (
+    make_random_batch_host, solve_batch_certified,
+)
 from minilp_tpu.status import Status
 
 
 def main(batch: int = 512, m: int = 16, nv: int = 24) -> None:
-    interpret = jax.default_backend() != "tpu"
-    key = jax.random.PRNGKey(0)
-    A, b, c, lo, hi, vstat0, basis0 = make_random_batch(key, batch, m, nv)
+    A, b, c, lo, hi = make_random_batch_host(0, batch, m, nv)
+    route = routes.batched_route(m, m + nv)
 
     t0 = time.time()
-    res = solve_batch_pallas(A, b, c, lo, hi, interpret=interpret)
-    jax.block_until_ready(res.obj)
-    t_kernel = time.time() - t0
-    verified = np.asarray(res.verified)
+    res = solve_batch_certified(A, b, c, lo, hi)
+    dt = time.time() - t0
     print(
-        f"megakernel: {batch} LPs in {t_kernel:.3f}s "
-        f"({batch / t_kernel:.0f} LPs/s incl. compile), "
-        f"{int(verified.sum())}/{batch} f64-certified, "
-        f"mean iters {float(np.asarray(res.niter).mean()):.1f}"
+        f"{route} route: {batch} LPs in {dt:.3f}s "
+        f"({batch / dt:.0f} LPs/s incl. compile), "
+        f"{int((~res.host_resolved).sum())}/{batch} certified by the device "
+        f"route, mean iters {float(np.asarray(res.niter).mean()):.1f}"
     )
-
-    # fall back to the exact f64 engine for any unverified lane
-    bad = np.nonzero(~verified)[0]
-    if bad.size:
-        sel = lambda x: x[bad]
-        ref = solve_batch(
-            sel(A), sel(b), sel(c), sel(lo), sel(hi), sel(vstat0), sel(basis0),
-            opts=SolverOptions(),
-        )
-        print(f"fallback re-solved {bad.size} lanes: statuses "
-              f"{np.asarray(ref.status)}")
-
     n_opt = int((np.asarray(res.status) == int(Status.OPTIMAL)).sum())
     print(f"{n_opt}/{batch} optimal; example objectives: "
           f"{np.asarray(res.obj)[:4].round(6).tolist()}")

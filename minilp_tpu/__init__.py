@@ -1,9 +1,10 @@
-"""minilp_tpu — a TPU-native linear programming framework.
+"""minilp_tpu — a linear programming framework for NVIDIA GPUs on JAX.
 
 A from-scratch rebuild of the capabilities of the `minilp` crate (ztlpn/minilp):
 standard-form LPs with bounded variables, ≤/≥/= constraints, and an incremental
 warm-started re-solve API (add constraints, fix/unfix variables, Gomory cuts) —
-designed TPU-first on JAX/XLA/Pallas rather than ported.  Blueprint: SURVEY.md.
+designed for the accelerator on JAX/XLA/Pallas rather than ported.
+Blueprint: SURVEY.md.
 
 Public surface mirrors the reference's `src/lib.rs` [API]::
 

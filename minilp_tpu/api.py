@@ -1,6 +1,6 @@
 """Public modeling API — parity surface with the reference crate.
 
-This is the TPU build's equivalent of `src/lib.rs` (C1 in SURVEY.md §3.1 [API]):
+This is this build's equivalent of `src/lib.rs` (C1 in SURVEY.md §3.1 [API]):
 `Problem` (`new`/`add_var`/`add_constraint`/`solve`), `Variable`, `LinearExpr`,
 `ComparisonOp{Eq,Le,Ge}`, `OptimizationDirection{Minimize,Maximize}`, `Solution`
 (`objective`, `var_value`, indexing, iteration, and the incremental re-solve
@@ -213,7 +213,7 @@ def _check_bounds(lo: Optional[float], hi: Optional[float]) -> Tuple[float, floa
 
 class Problem:
     """An LP under construction: variables with objective coefficients and bounds,
-    plus linear constraints.  `solve()` hands off to the TPU engine and returns a
+    plus linear constraints.  `solve()` hands off to the device engines and returns a
     `Solution` owning the warm-startable solver state (the reference's `Solution`
     owns its `Solver` — `src/lib.rs (struct Solution)` [API][CODE]).
     """

@@ -7,7 +7,8 @@ maximization is handled by negating the objective internally.  We reproduce thos
 semantics, but the output is designed for XLA rather than for sparse CPU loops:
 
 * **Dense padded arrays, static shapes.** Rows are padded to a multiple of
-  `row_align` (TPU sublane), total columns to a multiple of `col_align` (TPU lane).
+  `row_align` (inert capacity for `add_constraint`), total columns to a
+  multiple of `col_align` (aligned, coalesced rows of A).
   Padding rows are all-zero with a fixed `[0,0]` slack that starts (and provably
   stays) basic at value 0; padding columns are fixed `[0,0]` variables that can
   never enter.  Padding is therefore *inert* under simplex dynamics — no masking

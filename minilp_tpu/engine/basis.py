@@ -2,20 +2,20 @@
 
 Reference counterpart: `BasisSolver` + `src/lu.rs` (C3/C4 in SURVEY.md §3.1):
 sparse LU with Markowitz/threshold pivoting, Gilbert–Peierls solves, product-form
-eta file, COLAMD-style ordering (C5).  None of that survives contact with the TPU:
+eta file, COLAMD-style ordering (C5).  The device engine trades all of that for
+dense, fixed-shape linear algebra that one compiled loop can carry:
 
 * The basis is **dense** in HBM (an m×m matrix is at most a few hundred MB for the
   largest Netlib instances — SURVEY.md §8 "Hard parts" #4), so fill-reducing
   ordering (C5) is unnecessary by design and intentionally has no equivalent here.
 * FTRAN/BTRAN become dense mat-vecs against a maintained explicit inverse.  A
   product-form (PFI) pivot update of the *inverse* is a rank-1 outer-product —
-  pure VPU/MXU work, O(m²) with perfect vectorization — rather than an eta-file
+  dense O(m²) work with perfect vectorization — rather than an eta-file
   sweep of sequential O(m) steps.  BTRAN of a unit vector (the pivot-row solve,
   `calc_row_coeffs` [CODE]) is then *free*: it is a row read of `Binv`.
-* Refactorization rebuilds the inverse from the basis columns.  TPU has no native
-  f64 LU (verified: `lax.linalg.lu` fails to compile for f64 on v5e), so in f64 we
-  seed with an equilibrated f32 LU inverse and apply Newton–Schulz refinement
-  (X ← X + X(I − BX)) in f64 — quadratically convergent, matmul-only, MXU-friendly.
+* Refactorization refreshes the maintained inverse in graph with Newton–Schulz
+  sweeps (X ← X + X(I − BX)) — quadratically convergent and matmul-only; a
+  divergence exits with NUMERICAL and the host rebuilds the inverse exactly.
 """
 
 from __future__ import annotations
@@ -40,27 +40,6 @@ def nonbasic_values(vstat: jnp.ndarray, lo: jnp.ndarray, hi: jnp.ndarray) -> jnp
     return x
 
 
-def stable_inverse(B: jnp.ndarray, newton_iters: int) -> jnp.ndarray:
-    """Inverse of the basis matrix, robust to the backend's dtype support.
-
-    On CPU (or f32 working dtype) this is a straight LU inverse.  On TPU with f64
-    working dtype, XLA cannot compile f64 LU, so: equilibrate rows, invert in f32,
-    then Newton–Schulz refine in f64.  Equilibration keeps the f32 seed inside
-    Newton's convergence region for badly row-scaled bases.
-    """
-    dtype = B.dtype
-    if dtype == jnp.float64 and jax.default_backend() == "tpu":
-        r = jnp.maximum(jnp.max(jnp.abs(B), axis=1), 1e-30)
-        Bs = B / r[:, None]
-        X = jnp.linalg.inv(Bs.astype(jnp.float32)).astype(jnp.float64)
-        Bs64 = Bs
-        eye = jnp.eye(B.shape[0], dtype=jnp.float64)
-        for _ in range(max(newton_iters, 0)):
-            X = X + X @ (eye - Bs64 @ X)
-        return X / r[None, :]
-    return jnp.linalg.inv(B)
-
-
 def basis_matrix(A: jnp.ndarray, basis: jnp.ndarray) -> jnp.ndarray:
     """Gather the basic columns: B = A[:, basis] (shape (M, M))."""
     return jnp.take(A, basis, axis=1)
@@ -69,11 +48,10 @@ def basis_matrix(A: jnp.ndarray, basis: jnp.ndarray) -> jnp.ndarray:
 def newton_refresh(B: jnp.ndarray, X: jnp.ndarray, iters: int):
     """Newton–Schulz refinement X ← X + X(I − BX) of an approximate inverse.
 
-    Matmul-only (MXU), quadratically convergent while ‖I − BX‖ < 1.  The
+    Matmul-only, quadratically convergent while ‖I − BX‖ < 1.  The
     PFI-maintained inverse accumulates only roundoff between refactorizations,
-    so it is deep inside the basin; this replaces an in-graph LU entirely —
-    LU factorization compiles to a large sequential XLA while-graph on TPU and
-    dominates compile time, while Newton is three fused matmuls.
+    so it is deep inside the basin; this replaces an in-graph LU with a few
+    fused matrix products.
 
     Returns (X_refined, resid) with resid = max|I − BX| *before* the last
     correction — a divergence telltale for the caller.

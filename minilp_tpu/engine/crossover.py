@@ -3,11 +3,11 @@
 The reference solves its whole suite with one sparse simplex on one CPU
 thread (`src/solver.rs` hot loop [CODE]).  This framework's exact host
 engine (engine/hostlp.py) matches it per pivot, but a *cold* start at
-maros-r7 scale prices ~88k pivots (measured round 3; HiGHS ~98 s) — the
-missing piece is a way to START NEAR THE OPTIMUM.  That is exactly what
-the first-order engine provides: `solve_pdhg_sparse` reaches KKT ~1e-5 at
-maros shape in minutes on this CPU, and the optimal basis is readable off
-the converged iterate.  The crossover (PDLP-style basis identification;
+maros-r7 scale prices ~88k pivots — the missing piece is a way to START
+NEAR THE OPTIMUM.  That is exactly what the first-order engine provides:
+PDHG reaches KKT ~1e-4 at maros shape in tens of thousands of cheap
+matvec iterations, and the optimal basis is readable off the converged
+iterate.  The crossover (PDLP-style basis identification;
 PAPERS.md "GPU-based First-Order Methods for LP" discusses the same
 two-stage design) replaces tens of thousands of cold pivots with a few
 hundred exact warm ones:
@@ -26,8 +26,7 @@ hundred exact warm ones:
    finishes and certifies in f64).
 
 No reference analog — upstream never needed one — but this is the route
-to its "solves the suite anywhere" property on CPU-only backends
-(VERDICT r3 missing #2).
+to its "solves the suite anywhere" property, CPU-only machines included.
 """
 
 from __future__ import annotations
@@ -37,6 +36,7 @@ from typing import Optional, Tuple
 import numpy as np
 import scipy.sparse as sp
 
+from .. import routes
 from ..options import SolverOptions
 from ..status import Status, VarStat
 from . import hostlp
@@ -188,19 +188,20 @@ def kkt_error_f64(
 
 
 def _device_pdhg_stage(can, opts: SolverOptions, tol: float, progress: bool,
-                       budget_s: float | None = None):
-    """f32 dense PDHG on the TPU for the crossover (VERDICT r4 #1).
+                       budget_s: float | None = None, force: bool = False):
+    """Dense f32 PDHG on the device for the crossover.
 
-    The host-CPU sparse-f64 stage runs at ~900 iters/s while the chip
-    idles; dense f32 matvecs at maros shape (~160 MB of Aᵀ traffic per
-    iteration pair) ride HBM at thousands of iterations/s with no emulated
-    f64 in the graph.  Chunk-launched under the worker watchdog (adaptive
-    ~10 s per launch); after every chunk the host computes the EXACT f64
-    KKT error of the pulled iterate and decides: stop at `tol`, stop at the
-    f32 resolution floor (3 consecutive chunks with <3% relative
-    improvement), or continue.  Returns (x, y, niter, f64_err) — possibly
-    above `tol` when the floor was hit — or None (non-TPU backend, or the
-    run went nowhere).
+    Dense f32 matvecs at maros shape stream ~160 MB of A per iteration pair
+    from device memory, where the host's sparse f64 stage would leave the
+    device idle.  The stage runs in chunks of launches (adaptive, ~10 s
+    each); after every chunk the host computes the EXACT f64 KKT error of
+    the pulled iterate and decides: stop at `tol`, stop at the f32
+    resolution floor (3 consecutive chunks with <3% relative improvement),
+    or continue.  Returns (x, y, niter, f64_err, omega) — possibly above
+    `tol` when the floor was hit — or None when `routes.device_pdhg` says
+    this backend runs no device stage (`force=True` runs it anyway, on the
+    default device) or the run produced no finite iterate.  A lowering or
+    runtime failure raises.
     """
     import dataclasses
     import time
@@ -211,7 +212,7 @@ def _device_pdhg_stage(can, opts: SolverOptions, tol: float, progress: bool,
     from ..status import Status as _S
     from .pdhg import solve_pdhg
 
-    if jax.default_backend() != "tpu":
+    if not (force or routes.device_pdhg()):
         return None
     f32 = lambda v: jnp.asarray(np.asarray(v, np.float32))
     A64 = can.csc()  # sparse KKT monitor (kkt_error_f64 accepts sparse A)
@@ -223,23 +224,24 @@ def _device_pdhg_stage(can, opts: SolverOptions, tol: float, progress: bool,
     A_f32 = f32(can.A)
     # in-graph tolerance slightly below the target: the f32 error estimate is
     # noisy, and the HOST f64 check is the decider either way.  The stage
-    # pins the HALPERN variant (chip A/B at maros shape: 31.5k iterations
-    # to the 1e-4 neighborhood vs 52.4k for vanilla — ~40% fewer): its
-    # frozen-ω weakness on badly-scaled instances is exactly what this
-    # stage's f64-monitored fallback chain absorbs (floor-stall → host
-    # warm continuation; garbage → host cold stage), so the accelerated
-    # scheme is safe HERE even though the user-facing engine default stays
-    # vanilla.
+    # pins the HALPERN variant (31.5k iterations to the 1e-4 neighborhood vs
+    # 52.4k for vanilla at maros shape — ~40% fewer): its frozen-ω weakness
+    # on badly-scaled instances is exactly what this stage's f64-monitored
+    # fallback chain absorbs (floor-stall → host warm continuation; garbage
+    # → host cold stage), so the accelerated scheme is safe HERE even though
+    # the user-facing engine default stays vanilla.
     p_opts = dataclasses.replace(
         opts, dtype="float32", feas_tol=max(0.5 * tol, 1e-6),
         pdhg_matrix="dense", pdhg_variant="halpern",
     )
-    # PHASE SCHEDULE: the matvecs are HBM-bound on A, so the early decades
-    # run with A in BFLOAT16 (half the bytes, f32 MXU accumulate — chip
-    # A/B'd) down to a coarse target, then the f32 matrix finishes to
-    # `tol`.  Each phase hands its (original-space, f32-vector) state to
-    # the next warm; the bf16 phase is skipped for small A where the
-    # matvec is not the cost.
+    # PHASE SCHEDULE: the matvecs are bound by the bytes of A, so the early
+    # decades run with A stored in BFLOAT16 (half the bytes; its entries
+    # rounded to bf16, the vectors and every accumulation in f32) down to a
+    # coarse target, then the f32 matrix finishes to `tol`.  Each phase
+    # hands its (original-space, f32-vector) state to the next warm; the
+    # bf16 phase is skipped for small A where the matvec is not the cost.
+    # Every product runs at "highest" precision: a TF32 matvec would move
+    # the f32 floor at which the stage hands off.
     phases = []
     if can.A.size >= (1 << 22):  # ≥ ~16 MB f32: HBM-bound regime
         phases.append((jnp.asarray(A_f32, jnp.bfloat16),
@@ -275,19 +277,17 @@ def _device_pdhg_stage(can, opts: SolverOptions, tol: float, progress: bool,
                 break  # caller-imposed wall budget (bench lines)
             cap = min(done + chunk, opts.pdhg_max_iter)
             t0 = time.perf_counter()
-            try:
+            with jax.default_matmul_precision("highest"):
                 st = solve_pdhg(A_phase, *vecs, opts=p_opts, state0=st,
                                 stop_at=jnp.int32(cap))
-                x = np.asarray(st.x, np.float64)
-                y = np.asarray(st.y, np.float64)  # forces completion too
-            except Exception:
-                return None  # lowering failure: host stage takes over
+            x = np.asarray(st.x, np.float64)
+            y = np.asarray(st.y, np.float64)  # forces completion too
             dt = time.perf_counter() - t0
             prev_done, done = done, int(st.niter)
             err = kkt_error_f64(A64, b64, c64, lo64, hi64, x, y, tol)
             n_launches += 1
             if progress:
-                print(f"[crossover/tpu:{phase_name}] iters={done} "
+                print(f"[crossover/device:{phase_name}] iters={done} "
                       f"f64_kkt={err:.3e} chunk_wall={dt:.1f}s", flush=True)
             if err <= phase_tol:
                 break
@@ -330,12 +330,12 @@ def solve_cold_crossover(
     terminal HostResult or None (caller falls back to the plain cold host
     solve).
 
-    The PDHG stage prefers the TPU (dense f32 iterate, chunk-launched, HOST
-    f64 KKT monitoring — `_device_pdhg_stage`); when the f32 floor stops
-    above `crossover_tol` the host sparse-f64 loop continues WARM from the
-    device iterate, so the chip still banks the bulk of the decades.  On
-    CPU-only machines the host sparse stage runs alone (pinned to the CPU
-    backend — it must stay off the emulated-f64 TPU graphs).
+    The PDHG stage prefers the device (dense f32 iterate, chunk-launched,
+    HOST f64 KKT monitoring — `_device_pdhg_stage`); when the f32 floor
+    stops above `crossover_tol` the host sparse-f64 loop continues WARM from
+    the device iterate, so the device still banks the bulk of the decades.
+    On the CPU backend the host sparse stage runs alone.  The host stage is
+    pinned to the CPU device.
     """
     import dataclasses
 
@@ -348,10 +348,7 @@ def solve_cold_crossover(
 
     if opts.dtype != "float64":
         return None
-    try:
-        cpu = jax.devices("cpu")[0]
-    except RuntimeError:
-        return None
+    cpu = routes.cpu_device()
 
     # moderate-accuracy PDHG: the basis is combinatorial — identifying it
     # does not need 1e-8 residuals, and the last decades of KKT decay are
@@ -363,15 +360,15 @@ def solve_cold_crossover(
         pdhg_matrix="sparse",
     )
     dev_result = None
-    with profiling.stage("crossover_pdhg_tpu_s"):
+    with profiling.stage("crossover_pdhg_device_s"):
         dev = _device_pdhg_stage(can, opts, tol, progress)
     if dev is not None:
         x_d, y_d, dev_iters, err_d, _omega_d = dev
-        profiling.bump_stage("crossover_pdhg_tpu_iters", dev_iters)
+        profiling.bump_stage("crossover_pdhg_device_iters", dev_iters)
         if err_d <= 10.0 * tol:
             # good enough to identify from directly: the exact polish
             # absorbs looser identification far cheaper than the PDHG tail
-            # costs (the measured crossover_tol A/B, options.py:126-130)
+            # costs (the crossover_tol note in options.py)
             dev_result = (x_d, y_d, dev_iters, err_d)
         elif err_d > 1e-2:
             dev = None  # device run went nowhere — full host stage below

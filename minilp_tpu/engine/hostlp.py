@@ -2,17 +2,17 @@
 
 The reference's entire solver IS a host sparse simplex — `src/solver.rs`
 pivot machinery over `src/lu.rs`'s Gilbert–Peierls LU with eta updates
-[CODE; SURVEY.md §2 C2–C4].  In this framework the TPU kernels do the bulk
-iteration in f32, and THIS module supplies the reference-grade exact linear
+[CODE; SURVEY.md §2 C2–C4].  In this framework the device engines do the
+bulk iteration, and THIS module supplies the reference-grade exact linear
 algebra at the seams:
 
-* **polish**: finish a near-optimal f32 basis (streaming kernel / megakernel
-  handoff) with exact f64 pivots — the round-2 dense host polish (XLA CPU
-  engine, O(m·n) dense passes per pivot) took ~1 h at maros-r7 scale; sparse
-  FTRAN/BTRAN at ~0.5 % density makes each pivot ~a millisecond;
+* **polish**: finish a near-optimal basis (an f32 pass, the crossover's
+  identified basis) with exact f64 pivots — the dense XLA CPU engine pays
+  O(m·n) dense passes per pivot at maros-r7 scale; sparse FTRAN/BTRAN at
+  ~0.5 % density makes each pivot ~a millisecond;
 * **certify**: one sparse LU instead of dense `np.linalg.solve` (O(m³));
 * **warm incremental re-solves**: a handful of exact pivots after an edit is
-  latency-bound work that belongs on the host, not across the TPU link.
+  latency-bound work that belongs on the host.
 
 `scipy.sparse.linalg.splu` (SuperLU, COLAMD ordering) plays the role of the
 reference's LU factorization; the product-form eta file plays its eta

@@ -3,7 +3,7 @@
 Reference analogs: `Solver::add_constraint`, `fix_var`, `unfix_var`,
 `add_gomory_cut` (`src/solver.rs` [CODE][API]; SURVEY.md §4.2/§4.3 call stacks).
 
-TPU-first design (SURVEY.md §8 Phase 3): the canonical form pre-allocates inert
+Fixed-shape design (SURVEY.md §8 Phase 3): the canonical form pre-allocates inert
 padding rows whose fixed slacks are already basic, so *adding a constraint is a
 masked in-place write* — fill the row's coefficients, set the slack bounds for
 the op, set b, and the shapes (and hence the compiled resolvers) are unchanged.
@@ -130,10 +130,6 @@ def _try_host_resolve(handle, event: str, prefer_dual: bool = False) -> bool:
     opts = handle.opts
     if opts.dtype != "float64":
         return False
-    if opts.use_megakernel == "always" or opts.use_streaming == "always":
-        # the user explicitly forced a device kernel path; the host-first
-        # shortcut must not silently bypass it (ADVICE r3)
-        return False
     from . import hostlp
 
     terminal = (int(Status.OPTIMAL), int(Status.INFEASIBLE),
@@ -189,138 +185,8 @@ def _try_host_resolve(handle, event: str, prefer_dual: bool = False) -> bool:
     return True
 
 
-def _try_megakernel_resolve(handle, event: str) -> bool:
-    """Warm re-solve through the Pallas megakernel (TPU fast path).
-
-    After an edit the previous basis is a few pivots from optimal; the f32
-    kernel restarts from (basis, vstat, maintained inverse) and the result is
-    f64-certified before being adopted.  Returns False (caller falls back to
-    the XLA dual/primal engine) when ineligible, uncertified, or when the
-    kernel claims a non-OPTIMAL terminal status — INFEASIBLE from an f32
-    iterate is not a certificate, so the exact engine must confirm it.
-    """
-    can = handle.can
-    if not _driver._megakernel_eligible(can, handle.opts):
-        return False
-    warm = (
-        np.asarray(handle.state.basis),
-        np.asarray(handle.state.vstat),
-        np.asarray(handle.state.Binv),
-    )
-    with records.timed() as t:
-        state = _driver._try_megakernel_solve(can, handle.opts, warm_state=warm)
-    if state is None:
-        return False
-    _driver._emit_record(event + "_megakernel", can, state,
-                         int(Status.OPTIMAL), t.wall_s, handle.opts)
-    handle.state = state
-    handle._x_cache = None
-    handle._exact_obj = None
-    handle.certified = None
-    handle.certify()
-    return True
-
-
-def _try_streaming_resolve(handle, event: str) -> bool:
-    """Warm re-solve through the HBM-streaming kernel (Netlib-scale TPU path).
-
-    Mirrors `_try_megakernel_resolve` for instances beyond the megakernel's
-    VMEM envelope: restart the streaming kernel from (basis, vstat,
-    maintained inverse), certify the result in exact f64, host-polish
-    near-optimal/NUMERICAL outcomes.  Row padding to the kernel's 128-lane
-    requirement extends the state exactly (new rows are zero rows with their
-    own basic slacks: [[B,0],[0,I]]⁻¹ = [[B⁻¹,0],[0,I]])."""
-    can = handle.can
-    opts = handle.opts
-    if not _driver._streaming_eligible(can, opts):
-        return False
-    from ..ops.kernels.streaming_simplex import solve_streaming_pallas
-
-    M, nv = can.M, can.nv
-    M2 = -(-M // 128) * 128
-    A, b, c, lo, hi = can.A, can.b, can.c, can.lo, can.hi
-    basis0 = np.asarray(handle.state.basis)
-    vstat0 = np.asarray(handle.state.vstat)
-    Binv0 = np.asarray(handle.state.Binv)
-    if M2 != M:
-        extra = M2 - M
-        n2 = nv + M2
-        A2 = np.zeros((M2, n2), dtype=can.A.dtype)
-        A2[:M, : nv + M] = can.A[:, : nv + M]
-        A2[np.arange(M, M2), nv + M + np.arange(extra)] = 1.0
-        b = np.concatenate([can.b, np.zeros(extra, can.b.dtype)])
-        c = np.concatenate([can.c[: nv + M], np.zeros(extra, can.c.dtype)])
-        lo = np.concatenate([can.lo[: nv + M], np.zeros(extra, can.lo.dtype)])
-        hi = np.concatenate([can.hi[: nv + M], np.zeros(extra, can.hi.dtype)])
-        A = A2
-        basis0 = np.concatenate([
-            basis0, nv + M + np.arange(extra, dtype=np.int32)
-        ])
-        vstat0 = np.concatenate([
-            vstat0[: nv + M],
-            np.full(extra, int(VarStat.BASIC), dtype=vstat0.dtype),
-        ])
-        Binv2 = np.eye(M2, dtype=np.float64)
-        Binv2[:M, :M] = Binv0
-        Binv0 = Binv2
-    interpret = jax.default_backend() != "tpu"
-    with records.timed() as t:
-        try:
-            f32 = _driver._f32_opts(opts)
-            res = solve_streaming_pallas(
-                A, b, c, lo, hi, slack0=nv,
-                max_iter=opts.effective_max_iter(can.M, can.N),
-                # the kernel's Newton refresh is its costliest block (HBM-staged
-                # gather + 2 sweeps); SE-weight recompute rides on it.  The
-                # auto floor of 128 amortizes it with exact candidate
-                # updates in between (confirm/regress guards absorb the
-                # extra f32 drift); explicit settings respected verbatim.
-                refactor_period=opts.streaming_refactor_period(can.M),
-                feas_tol=f32.feas_tol, opt_tol=f32.opt_tol,
-                pivot_tol=f32.pivot_tol,
-                bland_after=max(opts.bland_after, 400),
-                devex_reset=opts.devex_reset,
-                interpret=interpret,
-                warm_state=(basis0, vstat0, Binv0),
-            )
-        except Exception:
-            return False
-        basis = np.asarray(res.basis)[:M]
-        vstat = np.asarray(res.vstat).astype(np.int8)
-        if M2 != M:
-            vstat_can = np.full(can.N, int(VarStat.FIXED), dtype=np.int8)
-            vstat_can[: nv + M] = vstat[: nv + M]
-            vstat = vstat_can
-        if bool(res.verified):
-            state = _driver._state_from_certified_basis(
-                can, basis, vstat, int(res.niter), opts
-            )
-        elif int(res.status) in (
-            int(Status.OPTIMAL), int(Status.NUMERICAL), int(Status.MAX_ITER)
-        ):
-            state = _driver._host_polish_from_basis(
-                can, basis, vstat, opts, niter0=int(res.niter)
-            )
-        else:
-            state = None
-    if state is None:
-        return False
-    _driver._emit_record(event + "_streaming", can, state,
-                         int(Status.OPTIMAL), t.wall_s, opts)
-    handle.state = state
-    handle._x_cache = None
-    handle._exact_obj = None
-    handle.certified = None
-    handle.certify()
-    return True
-
-
 def _run_dual_resolve(handle) -> None:
     if _try_host_resolve(handle, "dual_resolve", prefer_dual=True):
-        return
-    if _try_megakernel_resolve(handle, "dual_resolve"):
-        return
-    if _try_streaming_resolve(handle, "dual_resolve"):
         return
     can = handle.can
 
@@ -348,10 +214,6 @@ def _run_dual_resolve(handle) -> None:
 
 def _run_primal_resolve(handle) -> None:
     if _try_host_resolve(handle, "primal_resolve"):
-        return
-    if _try_megakernel_resolve(handle, "primal_resolve"):
-        return
-    if _try_streaming_resolve(handle, "primal_resolve"):
         return
     can = handle.can
 

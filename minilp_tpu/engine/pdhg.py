@@ -12,7 +12,7 @@ lo ≤ x ≤ hi  (free equality duals y):
     y⁺ = y + σ (b − A(2x⁺ − x))
 
 with τ = ω/‖A‖₂, σ = 1/(ω‖A‖₂) (‖A‖₂ from power iteration).  Every operation
-is a matvec or elementwise pass — pure MXU/VPU work that XLA fuses; the same
+is a matvec or elementwise pass — dense work that XLA fuses; the same
 code vmaps over scenario batches and row-shards over a mesh with a psum on the
 matvec partials (SURVEY.md §6.7) — the distributed form lives in
 parallel/pdhg_sharded.py, which re-enters `_run_pdhg` with row-block operator
@@ -505,9 +505,9 @@ def solve_pdhg(
 
     When `A` arrives in a NARROWER dtype than the vectors (bfloat16 A with
     f32 b/c — the device head-start path), the scaled matrix keeps that
-    dtype so the iterate matvecs read half the HBM bytes; mixed
-    bf16×f32 contractions accumulate in f32 on the MXU.  All vector math
-    stays in the vectors' dtype.
+    dtype so the iterate matvecs read half the bytes of device memory: its
+    entries are bf16-rounded, and the bf16×f32 contractions promote to f32
+    and accumulate in f32.  All vector math stays in the vectors' dtype.
     """
     vdtype = b.dtype
     mat_dtype = A.dtype

@@ -2,7 +2,7 @@
 `lax.while_loop`.
 
 Reference analog: `Solver::optimize` / `find_initial_bfs` and the pivot
-machinery (`src/solver.rs` [CODE]; SURVEY.md §4.1 call stack).  TPU-first
+machinery (`src/solver.rs` [CODE]; SURVEY.md §4.1 call stack).  Accelerator
 redesign decisions (SURVEY.md §8 Phase 1, plus compile-cost pragmatics):
 
 * **One loop, phase in the carry.**  Phase 1 (minimize total bound
@@ -10,9 +10,9 @@ redesign decisions (SURVEY.md §8 Phase 1, plus compile-cost pragmatics):
   maintained reduced costs + Devex weights) share a single loop body; the
   phase-1→2 transition is a flag flip plus an exact refactorization inside the
   body.  This compiles one body instead of two (the XLA graph — and its
-  (re)factorization subgraphs — is the dominant compile cost on the TPU
-  backend), and under `vmap` it removes the cross-lane phase barrier: each
-  batched LP transitions independently.
+  (re)factorization subgraphs — dominates compile time), and under `vmap` it
+  removes the cross-lane phase barrier: each batched LP transitions
+  independently.
 * **One ratio test.**  The phase-1 bounded ratio test (infeasible basics block
   at the bound they are moving *toward*, rows moving away from a violated
   bound never block) reduces exactly to the textbook phase-2 rule when all

@@ -1,2 +1,2 @@
-"""Pallas TPU kernels for the solver's hot paths (BASELINE north star:
-"pricing, the ratio test, and basis solves run as Pallas kernels")."""
+"""Hand-written GPU kernels for the solver's hot paths (Pallas through
+Triton)."""

@@ -16,7 +16,7 @@ from typing import Optional
 
 @dataclasses.dataclass(frozen=True)
 class SolverOptions:
-    """Numeric and engine options for the TPU LP solver.
+    """Numeric and engine options for the LP solver.
 
     Defaults follow the reference's hardcoded constants where known
     (SURVEY.md §6.6: pricing/feasibility epsilon ~1e-8) and standard
@@ -54,38 +54,21 @@ class SolverOptions:
     bland_after: int = 50
 
     # --- numerics -------------------------------------------------------------
-    #: Working dtype: "float64" (default; emulated but correct on TPU) or "float32".
+    #: Working dtype: "float64" (default) or "float32".
     dtype: str = "float64"
-    #: Newton refinement sweeps applied to the f32-seeded basis inverse when the
-    #: working dtype is float64 on a backend without native f64 LU (TPU).
+    #: Newton–Schulz sweeps of the in-graph basis-inverse refresh
+    #: (engine/basis.py `refactorize`).
     newton_refine_iters: int = 3
     #: Engine: "simplex" (revised primal/dual simplex) or "pdhg" (first-order).
     engine: str = "simplex"
     #: Host-side presolve before canonicalization (singleton/empty/redundant row
     #: elimination + bound tightening; build-only — the reference has none).
     presolve: bool = True
-    #: Single-LP Pallas megakernel routing: "auto" solves small LPs through
-    #: the VMEM-resident f32 kernel when running on TPU (f64 certification on
-    #: the host; silent fallback to the XLA engine when uncertified),
-    #: "always" forces it (interpret mode off-TPU), "never" disables.
-    use_megakernel: str = "auto"
-    #: Netlib-scale TPU path: single LPs beyond the megakernel's VMEM
-    #: envelope (padded M in (512, 4096], N ≤ 32768) route through the
-    #: HBM-streaming Pallas kernel (A transposed in HBM, B⁻¹ VMEM-resident,
-    #: one Aᵀ stream per pivot — ops/kernels/streaming_simplex.py) with the
-    #: same f32-iterate + exact-f64-certify + host-polish contract; a
-    #: mid-solve NUMERICAL exit (basis conditioning beyond f32) hands the
-    #: basis to the exact host engine.  "always" forces it (interpret mode
-    #: off-TPU), "never" disables.
-    use_streaming: str = "auto"
-    #: Mid-size TPU path: when an LP is too big for the megakernel's VMEM
-    #: envelope and the working dtype is float64, "auto" first runs the XLA
-    #: engine in float32 (loosened tolerances) and adopts the answer only
-    #: after exact f64 host certification of the discovered basis — the same
-    #: iterate-f32/certify-f64 pattern as the megakernel, avoiding the TPU's
-    #: emulated-f64 hot loop (minutes of compile; device faults at some
-    #: shapes).  "always" forces the f32 first pass on every backend,
-    #: "never" disables it (straight to the f64 engine).
+    #: f32-iterate + exact-f64-certify first pass for cold float64 solves:
+    #: "always" first runs the XLA engine in float32 (loosened tolerances)
+    #: and adopts the answer only after exact f64 host certification of the
+    #: discovered basis; "auto" and "never" go straight to the f64 engine.
+    #: ("auto" turns it on nowhere until a GPU measurement shows f32 pays.)
     f32_midsize: str = "auto"
     #: Phase-2 pricing rule: "devex" (approximate steepest-edge reference
     #: weights, the reference's "Dantzig + steepest-edge" scheme — fresh
@@ -95,9 +78,11 @@ class SolverOptions:
     devex_reset: float = 1e8
 
     # --- shape padding (XLA static-shape friendliness) ------------------------
-    #: Round padded row count up to a multiple of this (TPU sublane = 8).
+    #: Round padded row count up to a multiple of this.  The extra rows are
+    #: inert capacity that `add_constraint` fills without a recompile.
     row_align: int = 8
-    #: Round padded column count up to a multiple of this (TPU lane = 128).
+    #: Round padded column count up to a multiple of this, so each row of
+    #: the dense A starts 512-byte aligned and is read in coalesced segments.
     col_align: int = 128
     #: Extra row capacity for incremental `add_constraint` without recompiling.
     row_capacity_slack: int = 0
@@ -129,18 +114,17 @@ class SolverOptions:
     #: instances can stall where vanilla adapts through).
     pdhg_variant: str = "vanilla"
 
-    # --- PDHG → simplex crossover (cold solves beyond the kernel envelope) ----
-    #: "auto": cold simplex solves above the device-kernel envelope start
+    # --- PDHG → simplex crossover (large cold solves) -------------------------
+    #: "auto": cold f64 simplex solves above 2048 padded rows start
     #: from a PDHG-identified basis instead of the slack basis (replaces
     #: ~10⁵ cold pivots with a few hundred warm exact ones at maros scale);
     #: "never" disables.
     crossover: str = "auto"
     #: KKT tolerance the PDHG stage runs to before basis identification —
     #: the basis is combinatorial; moderate accuracy identifies it and the
-    #: exact polish absorbs the residual.  Measured at the maros shape:
-    #: 1e-4 → 42k PDHG iters + 710 exact pivots (56 s total); 1e-5 → 96k +
-    #: 61 (100 s) — the polish absorbs looser identification far cheaper
-    #: than the PDHG tail costs.
+    #: exact polish absorbs the residual.  Counted at the maros shape:
+    #: 1e-4 → 42k PDHG iterations + 710 exact pivots; 1e-5 → 96k + 61 — the
+    #: polish absorbs looser identification far cheaper than the PDHG tail.
     crossover_tol: float = 1e-4
 
     def effective_max_iter(self, m: int, n: int) -> int:
@@ -158,13 +142,18 @@ class SolverOptions:
         # reference's eta-file threshold is of the same order).
         return 128 if m >= 1024 else 64
 
-    def streaming_refactor_period(self, m: int = 0) -> int:
-        """Period for the HBM-streaming kernel (auto floor 128: its Newton
-        refresh is the costliest block; exact candidate updates between
-        refreshes absorb the extra f32 drift)."""
-        if self.refactor_period is not None:
-            return max(int(self.refactor_period), 1)
-        return max(self.effective_refactor_period(m), 128)
+
+def f32_iterate_options(opts: SolverOptions) -> SolverOptions:
+    """f32 working copy of `opts` with tolerances loosened to what single
+    precision can resolve (exact f64 certification restores full accuracy;
+    these only steer the iterate)."""
+    return dataclasses.replace(
+        opts,
+        dtype="float32",
+        feas_tol=max(opts.feas_tol, 1e-5),
+        opt_tol=max(opts.opt_tol, 1e-6),
+        pivot_tol=max(opts.pivot_tol, 1e-6),
+    )
 
 
 DEFAULT_OPTIONS = SolverOptions()

@@ -2,14 +2,15 @@
 
 SURVEY.md §6.8: the "distributed backend" is JAX's multi-controller runtime
 plus XLA collectives — no custom transport.  `init_distributed` wraps
-`jax.distributed.initialize` (env-driven on TPU pods: each host calls it, then
-`jax.devices()` spans the slice and the mesh constructors in
-`parallel.mesh` lay axes over ICI/DCN automatically).
+`jax.distributed.initialize` (each process calls it with the coordinator
+address, process count and its own id; then `jax.devices()` spans every
+process's devices and the mesh constructors in `parallel.mesh` lay axes over
+them).
 
 `measure_scaling` is the BASELINE protocol harness ("≥70% iterations/s scaling
 efficiency at 2 hosts"): batched throughput at 1 device vs N devices on the
-same mesh shape.  On a real pod slice each device is an independent chip and
-the efficiency is meaningful; on the CI's virtual CPU mesh the devices share
+same mesh shape.  On real devices (e.g. four GPUs of one host) the
+efficiency is meaningful; on the CI's virtual CPU mesh the devices share
 host cores, so the harness is smoke-tested but its numbers are not asserted.
 """
 
@@ -33,8 +34,8 @@ def init_distributed(
 ) -> None:
     """Initialize the JAX multi-controller runtime (no-op if single-process).
 
-    On TPU pods all arguments are inferred from the environment; pass them
-    explicitly for CPU/GPU multi-process testing.
+    Pass all three explicitly: nothing in the environment describes the
+    cluster (e.g. ``coordinator_address="localhost:<port>"`` on one host).
     """
     if num_processes is not None and num_processes <= 1:
         return

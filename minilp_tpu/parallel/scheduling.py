@@ -1,28 +1,28 @@
-"""Heterogeneous-batch scheduling: size bucketing + difficulty-sorted packing.
+"""Heterogeneous-batch scheduling: size bucketing + difficulty-sorted order.
 
 This is the EP-analog row of SURVEY.md §3.3 ("heterogeneous batch scheduling —
-group scenario LPs by size/iteration count across chips to avoid stragglers").
-The reference (`ztlpn/minilp`) has no batching at all; these are build-only
-components shaped by how the pack-k megakernel executes:
+group scenario LPs by size/iteration count across devices to avoid
+stragglers").  The reference (`ztlpn/minilp`) has no batching at all; these
+are build-only components shaped by how the batched routes execute:
 
-* **Lockstep stragglers.** `ops/kernels/packed_simplex.py` runs k LPs per grid
-  program; a pack costs max(iter over its k members).  With random packing the
-  expected pack cost is E[max of k] ≈ 1.3–1.6× E[iter]; packing LPs of
-  *similar* expected iteration count pushes that toward 1× (the classic
-  longest-processing-time batching argument).  `sort_for_packing` orders the
-  batch by a cheap a-priori difficulty score so consecutive pack-mates are
-  similar; results are un-permuted before returning.
-* **Shape buckets.** The kernels are fixed-shape; a workload of LPs with
+* **Stragglers.** The batched kernel runs one LP per program and the GPU
+  schedules programs in waves, roughly in program order; the vmapped XLA
+  route runs a whole batch in lockstep.  Either way a group of LPs costs the
+  iterations of its slowest member, so placing LPs of *similar* expected
+  iteration count next to each other is the classic longest-processing-time
+  batching argument.  `sort_for_packing` orders the batch by a cheap a-priori
+  difficulty score; results are un-permuted before returning.
+* **Shape buckets.** The routes are fixed-shape; a workload of LPs with
   different (m, nv) must be padded.  Padding every LP to the global max wastes
-  VMEM and iteration work quadratically (the basis inverse is (k·M)²), so
-  `solve_heterogeneous` groups LPs into (M, NV) *tier buckets* (rows to the
-  sublane multiple, columns to a caller-set granule), pads only within the
-  bucket using the inert-padding scheme of `canonical.py` (padding rows carry
-  a fixed [0,0] slack basic at 0; padding columns are fixed [0,0] — provably
-  never active), and solves each bucket as one packed batch.
+  memory and iteration work quadratically (the basis inverse is M²), so
+  `solve_heterogeneous` groups LPs into (M, NV) *tier buckets* (rows and
+  columns to caller-set granules), pads only within the bucket using the
+  inert-padding scheme of `canonical.py` (padding rows carry a fixed [0,0]
+  slack basic at 0; padding columns are fixed [0,0] — provably never active),
+  and solves each bucket as one batch.
 
 Both entry points keep the certification contract of the batched drivers
-(`parallel.batched.resolve_unverified_host`): f32 kernel iterate, exact f64
+(`parallel.batched.resolve_unverified_host`): f32 device iterate, exact f64
 host verification of every lane, scipy-HiGHS re-solve of the rare uncertified
 lanes — callers always get exact, certified answers in the ORIGINAL input
 order and column layout.
@@ -48,8 +48,8 @@ class LPResult(NamedTuple):
 def _split_slack(A, b, c, lo, hi, slack0):
     """Structural column count for layout [structural | identity slack | pad].
 
-    Padding columns beyond slack0+m (inert FIXED [0,0] columns, e.g. from
-    `_assemble_packed`'s lane alignment) are accepted when `slack0` is given
+    Padding columns beyond slack0+m (inert FIXED [0,0] columns, e.g. the
+    canonical form's column alignment) are accepted when `slack0` is given
     explicitly; with slack0=None the layout must be exactly [structural |
     slack] (nothing to infer the pad width from).
     """
@@ -109,30 +109,26 @@ def difficulty_scores(A, b, c, lo, hi, *, slack0=None, tol: float = 1e-9):
 
 
 def sort_for_packing(scores) -> np.ndarray:
-    """Stable order grouping similar-difficulty LPs into adjacent pack slots."""
+    """Stable order placing similar-difficulty LPs in adjacent lanes."""
     return np.argsort(np.asarray(scores), kind="stable")
 
 
-def solve_batch_packed_sorted(
-    A, b, c, lo, hi, *, pack: int = 8, slack0=None, interpret: bool = False,
-    scores=None, **kernel_kwargs,
+def solve_batch_sorted(
+    A, b, c, lo, hi, *, slack0=None, scores=None, **route_kwargs,
 ):
-    """`solve_batch_packed` with difficulty-sorted pack assignment.
+    """`batched.solve_batch_certified` with difficulty-sorted lane order.
 
     Sorts the batch by `difficulty_scores` (or a caller-supplied `scores`
-    array), solves packs of similar LPs (so no pack idles on one straggler),
-    and returns results un-permuted — the output is positionally identical
-    to the unsorted call.
+    array), solves it, and returns results un-permuted — the output is
+    positionally identical to the unsorted call.  `route_kwargs` pass
+    through (`max_iter`, `route`, `interpret`).
 
-    Measured (random dense LPs, m=16, nv=32, pack=8): the static proxy cuts
-    total pack cost Σ max(niter) by ~3–4% vs arrival order; a perfect
-    predictor would cut ~16%.  Simplex iteration counts are only weakly
-    predictable a priori (corr ≈ 0.5–0.6 for every static feature tried), so
-    for RE-SOLVE workloads pass last round's measured `res.niter` as
-    `scores` — measured counts are the strongest predictor available.
+    Simplex iteration counts are only weakly predictable a priori (corr ≈
+    0.5–0.6 for every static feature tried), so for RE-SOLVE workloads pass
+    last round's measured `res.niter` as `scores` — measured counts are the
+    strongest predictor available.
     """
-    from ..ops.kernels.packed_simplex import solve_batch_packed
-    from .batched import resolve_unverified_host
+    from .batched import solve_batch_certified
 
     if scores is None:
         scores = difficulty_scores(A, b, c, lo, hi, slack0=slack0)
@@ -140,19 +136,16 @@ def solve_batch_packed_sorted(
     inv = np.empty_like(order)
     inv[order] = np.arange(order.size)
     take = lambda arr: np.asarray(arr)[order]
-    res = solve_batch_packed(
-        take(A), take(b), take(c), take(lo), take(hi),
-        pack=pack, slack0=slack0, interpret=interpret, **kernel_kwargs,
+    res = solve_batch_certified(
+        take(A), take(b), take(c), take(lo), take(hi), slack0=slack0,
+        **route_kwargs,
     )
     back = lambda arr: np.asarray(arr)[inv]
-    res = res._replace(
+    return res._replace(
         basis=back(res.basis), vstat=back(res.vstat), status=back(res.status),
         niter=back(res.niter), obj=back(res.obj),
         verified=back(res.verified), x=back(res.x),
     )
-    # same certification contract as the other batched drivers: exact host
-    # re-solve of any lane whose f32 basis failed f64 certification
-    return resolve_unverified_host(res, A, b, c, lo, hi)
 
 
 # ---------------------------------------------------------------------------
@@ -174,7 +167,7 @@ def pad_lp(A, b, c, lo, hi, slack0, M: int, NV: int):
     m, n = A.shape
     nv = slack0
     Np = NV + M
-    # the kernel initializes the basis inverse to I, i.e. the slack block must
+    # the routes initialize the basis inverse to I, i.e. the slack block must
     # be an exact +1 identity (canonical.py encodes row direction in the slack
     # BOUNDS, not the coefficient sign)
     if not np.array_equal(A[:, nv:nv + m], np.eye(m)):
@@ -203,31 +196,26 @@ def _unpad_x(x_p, nv: int, m: int, NV: int) -> np.ndarray:
 def solve_heterogeneous(
     lps: Sequence[Tuple],
     *,
-    pack: int = 8,
     row_granule: int = 8,
     col_granule: int = 32,
-    sort_packs: bool = True,
-    interpret: bool = False,
+    sort_lanes: bool = True,
     max_iter: int = 2000,
-    **kernel_kwargs,
+    **route_kwargs,
 ) -> List[LPResult]:
-    """Solve a heterogeneous list of LPs with size bucketing + sorted packing.
+    """Solve a heterogeneous list of LPs with size bucketing + sorted order.
 
     `lps` is a sequence of `(A, b, c, lo, hi)` (equality form, layout
     [structural | identity slack], minimize) or `(A, b, c, lo, hi, slack0)`.
     LPs are grouped into (rows→`row_granule`, structural cols→`col_granule`)
     tier buckets, padded only to their bucket's shape, difficulty-sorted
-    within the bucket, solved as packed batches (lane count padded to `pack`
-    by replicating the first LP — replica lanes are dropped), and returned as
+    within the bucket, solved as one batch per bucket, and returned as
     `LPResult`s in the ORIGINAL order and each LP's own column layout.
+    `route_kwargs` pass through to `batched.solve_batch_certified`.
 
-    Every result is certified: f64 host verification of the kernel basis,
+    Every result is certified: f64 host verification of the device basis,
     exact scipy-HiGHS re-solve of any uncertified lane.
     """
-    from scipy.optimize import linprog
-
-    from ..ops.kernels.packed_simplex import solve_batch_packed
-    from ..status import Status
+    from .batched import solve_batch_certified
 
     parsed = []
     for lp in lps:
@@ -258,48 +246,20 @@ def solve_heterogeneous(
 
         order = (sort_for_packing(difficulty_scores(Ab, bb, cb, lob, hib,
                                                     slack0=NV))
-                 if sort_packs else np.arange(len(idxs)))
-        # pad lane count to a multiple of pack by replicating lane order[0]
+                 if sort_lanes else np.arange(len(idxs)))
         B = len(idxs)
-        Bp = _align_up(B, pack)
-        lanes = np.concatenate([order, np.full(Bp - B, order[0], np.int64)])
-        res = solve_batch_packed(
-            Ab[lanes], bb[lanes], cb[lanes], lob[lanes], hib[lanes],
-            pack=pack, slack0=NV, interpret=interpret, max_iter=max_iter,
-            **kernel_kwargs,
+        res = solve_batch_certified(
+            Ab[order], bb[order], cb[order], lob[order], hib[order],
+            slack0=NV, max_iter=max_iter, **route_kwargs,
         )
-        obj = np.asarray(res.obj).copy()
-        x = np.asarray(res.x).copy()
-        status = np.asarray(res.status).copy()
-        niter = np.asarray(res.niter)
-        verified = np.asarray(res.verified).copy()
-        for lane in np.flatnonzero(~verified[:B]):
-            i = idxs[int(order[lane])]
-            A, b, c, lo, hi, s0 = parsed[i]
-            bounds = [
-                (lo[j] if np.isfinite(lo[j]) else None,
-                 hi[j] if np.isfinite(hi[j]) else None)
-                for j in range(c.size)
-            ]
-            r = linprog(c, A_eq=A, b_eq=b, bounds=bounds, method="highs")
-            if r.status == 0:
-                xp = np.zeros(NV + M)
-                xp[:s0] = r.x[:s0]
-                xp[NV:NV + A.shape[0]] = r.x[s0:]
-                obj[lane], x[lane] = r.fun, xp
-                status[lane], verified[lane] = int(Status.OPTIMAL), True
-            elif r.status == 2:
-                status[lane], verified[lane] = int(Status.INFEASIBLE), True
-            elif r.status == 3:
-                status[lane], verified[lane] = int(Status.UNBOUNDED), True
         for lane in range(B):
             i = idxs[int(order[lane])]
             A, b, c, lo, hi, s0 = parsed[i]
             results[i] = LPResult(
-                obj=float(obj[lane]),
-                x=_unpad_x(x[lane], s0, A.shape[0], NV),
-                status=int(status[lane]),
-                niter=int(niter[lane]),
-                verified=bool(verified[lane]),
+                obj=float(res.obj[lane]),
+                x=_unpad_x(np.asarray(res.x[lane]), s0, A.shape[0], NV),
+                status=int(res.status[lane]),
+                niter=int(res.niter[lane]),
+                verified=bool(res.verified[lane]),
             )
     return results

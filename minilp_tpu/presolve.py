@@ -1,4 +1,4 @@
-"""Host-side presolve: shrink the LP before it is padded and shipped to the TPU.
+"""Host-side presolve: shrink the LP before it is padded and sent to the device.
 
 The reference has no presolve (SURVEY.md §3 — `Solver::try_new` canonicalizes
 the rows exactly as given [CODE]); this is a build-only addition aimed at the

@@ -2,15 +2,17 @@
 
 The reference's observability is `log` crate debug lines in the solver loop
 (iteration counts, objective progress, refactorization events — SURVEY.md
-§6.1).  The TPU build's equivalent is a structured record per solve — engine,
-shapes, status, iterations, wall-clock, backend — emitted as one JSON line to
-the file named by `MINILP_TPU_LOG` (or stderr with `MINILP_TPU_LOG=-`).
-Disabled (zero overhead beyond a getenv) when the variable is unset.  These
-records are exactly the rows the BASELINE.md measurement protocol consumes.
+§6.1).  This build's equivalent is a structured record per solve — engine,
+route (`event`), shapes, status, iterations, wall-clock, backend — emitted as
+one JSON line to the file named by `MINILP_TPU_LOG` (or stderr with
+`MINILP_TPU_LOG=-`), and to every active `capture()` list.  Disabled (zero
+overhead beyond a getenv) when neither is on.  These records are exactly the
+rows the BASELINE.md measurement protocol consumes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -40,12 +42,33 @@ class SolveRecord:
         return self.iterations / self.wall_s if self.wall_s > 0 else 0.0
 
 
+_captures: list[list] = []
+
+
 def enabled() -> bool:
-    return bool(os.environ.get("MINILP_TPU_LOG"))
+    return bool(_captures) or bool(os.environ.get("MINILP_TPU_LOG"))
+
+
+@contextlib.contextmanager
+def capture():
+    """Collect the records emitted inside the block into a list:
+
+        with records.capture() as recs:
+            prob.solve()
+        recs[-1].event, recs[-1].backend
+    """
+    recs: list = []
+    _captures.append(recs)
+    try:
+        yield recs
+    finally:
+        _captures.remove(recs)
 
 
 def emit(record: SolveRecord) -> None:
-    if not enabled():
+    for recs in _captures:
+        recs.append(record)
+    if not os.environ.get("MINILP_TPU_LOG"):
         return
     payload = dataclasses.asdict(record)
     payload["iters_per_sec"] = round(record.iters_per_sec(), 2)

@@ -1,7 +1,8 @@
-"""Device-PDHG crossover stage gates (VERDICT r4 #1) — CPU-side logic.
+"""Device-PDHG crossover stage gates — CPU-side logic.
 
-The real chip path is exercised by tests/test_tpu_hw.py and bench.py; here
-the handoff LOGIC is gated by monkeypatching `_device_pdhg_stage` outcomes:
+The card path is exercised by tests/test_gpu.py and chip_smoke.py; here the
+stage itself runs forced onto the CPU, and the handoff LOGIC is gated by
+monkeypatching `_device_pdhg_stage` outcomes:
 a good device iterate short-circuits the host PDHG stage entirely, a
 floor-stalled iterate warm-starts the host sparse loop (which must still
 converge and certify), and a garbage outcome falls back to the cold host
@@ -123,6 +124,39 @@ def test_device_garbage_falls_back_to_cold_host(inst, monkeypatch):
     _check(res, can, obj)
 
 
-def test_device_stage_declines_off_tpu(inst):
+def test_device_stage_declines_on_cpu(inst):
     can, opts, *_ = inst
     assert crossover._device_pdhg_stage(can, opts, 1e-4, False) is None
+
+
+def test_device_stage_forced_on_cpu(inst):
+    """The stage's own loop (f32 chunks, host f64 KKT monitor) run on the
+    CPU: the returned error IS the exact f64 KKT of the returned iterate,
+    and it reaches the identification neighbourhood."""
+    can, opts, *_ = inst
+    tol = max(opts.crossover_tol, opts.feas_tol)
+    out = crossover._device_pdhg_stage(can, opts, tol, False, force=True)
+    assert out is not None
+    x, y, niter, err, omega = out
+    assert niter > 0 and omega > 0
+    err2 = crossover.kkt_error_f64(can.A, can.b, can.c, can.lo, can.hi,
+                                   x, y, tol)
+    assert abs(err - err2) <= 1e-12 * (1 + err2)
+    assert err <= 10.0 * tol
+
+
+def test_crossover_with_forced_device_stage(inst, monkeypatch):
+    """The whole crossover with the device stage forced on: the device
+    iterate feeds identification directly and the answer certifies."""
+    can, opts, obj, *_ = inst
+    stage = crossover._device_pdhg_stage
+    monkeypatch.setattr(
+        crossover, "_device_pdhg_stage",
+        lambda *a, **k: stage(*a, **{**k, "force": True}),
+    )
+    from minilp_tpu.utils import profiling
+
+    profiling.reset_stages()
+    res = crossover.solve_cold_crossover(can, opts)
+    _check(res, can, obj)
+    assert profiling.stages()["crossover_pdhg_device_iters"] > 0

@@ -6,12 +6,12 @@ instances at the SAME shapes and sparsities as the headline Netlib problems
 (utils/synth.py) against the scipy-HiGHS oracle — in the DEFAULT suite, both
 engines:
 
-* simplex, f32-iterate + f64-certify (the mid-size TPU path, forced on CPU
-  with f32_midsize="always"): certified exact optimum, ≤1e-9 relative;
+* simplex, f32-iterate + f64-certify (forced with f32_midsize="always"):
+  certified exact optimum, ≤1e-9 relative;
 * PDHG to KKT 1e-6: ≤1e-5 relative objective agreement.
 
 maros-r7 scale (3136×9408) stays behind --run-slow (minutes on CPU); on the
-chip it is covered by bench.py's netlib-shape line.
+GPU it is covered by chip_smoke.py's crossover phase.
 """
 
 import numpy as np
@@ -22,7 +22,7 @@ from minilp_tpu.utils.synth import NETLIB_SHAPES, netlib_shaped_problem
 
 from .oracle import random_problem, solve_with_oracle
 
-F32_CERT = SolverOptions(f32_midsize="always", use_megakernel="never")
+F32_CERT = SolverOptions(f32_midsize="always")
 PDHG = SolverOptions(engine="pdhg", feas_tol=1e-6, pdhg_max_iter=600_000)
 
 
@@ -54,16 +54,12 @@ def test_netlib_shape_pdhg(name):
 
 
 @pytest.mark.slow
+@pytest.mark.gpu
 @pytest.mark.skipif("not config.getoption('--run-slow', default=False)")
-@pytest.mark.skipif(
-    "not __import__('os').environ.get('MINILP_TPU_TEST_TPU')",
-    reason="maros-r7 scale needs the chip (measured >50 min on this CPU); "
-    "the TPU path is the streaming kernel + host handoff",
-)
 def test_maros_r7_shape_certified():
     # 3136×9408 @ ~0.5% — the reference's biggest headline instance
     prob, obj = _instance("maros-r7", seed=1)
-    sol = prob.solve()   # auto: streaming kernel → f32+certify → handoff
+    sol = prob.solve()   # auto: device PDHG → crossover → exact polish
     assert sol._engine.certified is True
     assert abs(sol.objective() - obj) <= 1e-9 * (1 + abs(obj))
 
@@ -81,11 +77,7 @@ def test_maros_r7_shape_pdhg_sparse():
         engine="pdhg", feas_tol=1e-6, pdhg_matrix="sparse",
         pdhg_max_iter=400_000,
     )
-    # CPU-pinned: this is a CPU-scale correctness gate (~8 min at ~10³
-    # iters/s on the host).  On the chip, sparse f64 PDHG runs at ~20
-    # iters/s (segment-sum matvecs in emulated f64 — the wall-bounded
-    # bench line covers that story); 400k iterations there is hours and
-    # the round-4 chip-suite run proved it (worker watchdog casualty).
+    # CPU-pinned: this is a CPU-scale correctness gate of the sparse path.
     with jax.default_device(jax.devices("cpu")[0]):
         sol = prob.solve()
     assert abs(sol.objective() - obj) <= 1e-5 * (1 + abs(obj))
@@ -96,14 +88,11 @@ def test_maros_r7_shape_pdhg_sparse():
 def test_maros_shape_cold_cpu_crossover():
     """FULL maros-r7-shape (3136×9408) COLD solve on the CPU-only backend,
     through the public driver route: PDHG (sparse) → basis identification →
-    exact host polish (engine/crossover.py).  Measured on this machine:
-    ~125 s total (PDHG ~95k iters + 61 exact pivots), certified to 5e-15 —
-    vs ~50+ min for the cold slack-basis host solve this gate previously
-    had to retreat from (round-3 ran 2048×6144 instead; VERDICT r3 #3 asked
-    for exactly this restoration)."""
+    exact host polish (engine/crossover.py): PDHG ~95k iterations + 61
+    exact pivots, certified, where the cold slack-basis host solve needs
+    ~88k pivots."""
     prob, obj = _instance("maros-r7", seed=1)
-    prob.options = SolverOptions(use_streaming="never", f32_midsize="never",
-                                 use_megakernel="never")
+    prob.options = SolverOptions(f32_midsize="never")
     sol = prob.solve()
     assert sol._engine.certified is True
     assert abs(sol.objective() - obj) <= 1e-9 * (1 + abs(obj))
@@ -111,7 +100,7 @@ def test_maros_shape_cold_cpu_crossover():
 
 def test_crossover_25fv47_shape():
     """PDHG → basis identification → host polish at the 25fv47 shape
-    (DEFAULT suite: ~6 s on this CPU).  The polish pivot count is the point:
+    (DEFAULT suite).  The polish pivot count is the point:
     basis identification must land within a few dozen exact pivots of the
     optimum (measured 18 at this shape vs 11.8k for the cold host solve)."""
     import numpy as np

@@ -58,9 +58,8 @@ def test_options_hashable_for_jit():
 
 def test_f32_midsize_path():
     # f32_midsize="always": default-f64 options, but the cold solve runs the
-    # XLA engine in f32 first and adopts only an exactly-certified basis —
-    # the mid-size TPU path (beyond the megakernel envelope), exercised here
-    # on CPU.  Certified answers are exact, so the gate is tight.
+    # XLA engine in f32 first and adopts only an exactly-certified basis.
+    # Certified answers are exact, so the gate is tight.
     opts = SolverOptions(f32_midsize="always")
     rng = np.random.default_rng(31)
     f32_hits = 0

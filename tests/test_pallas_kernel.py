@@ -1,36 +1,45 @@
-"""Batched simplex megakernel gate (interpret mode on CPU; the real-TPU path
-is exercised by bench.py).  Oracle: scipy-HiGHS per instance."""
+"""Batched simplex kernel gate (Pallas, Triton route): interpret mode on the
+CPU, cross-lowering to the Triton custom call, and the route's wrapper
+(padding, certification).  The compiled kernel runs on the card in
+tests/test_gpu.py.  Oracle: scipy-HiGHS per instance."""
 
 import numpy as np
 import pytest
 import jax
+import jax.numpy as jnp
 
-from minilp_tpu.ops.kernels.batched_simplex import solve_batch_pallas
-from minilp_tpu.parallel.batched import make_random_batch
+from minilp_tpu.ops.kernels import batched_simplex as bs
+from minilp_tpu.parallel.batched import (
+    make_random_batch, make_random_batch_host, solve_batch_certified,
+)
 from minilp_tpu.status import Status
+
+TRITON = dict(route="triton", interpret=True)
+
+
+def _highs(A, b, c, lo, hi):
+    from scipy.optimize import linprog
+
+    bounds = [
+        (lo[j] if np.isfinite(lo[j]) else None,
+         hi[j] if np.isfinite(hi[j]) else None)
+        for j in range(c.shape[0])
+    ]
+    r = linprog(c, A_eq=A, b_eq=b, bounds=bounds, method="highs")
+    assert r.status == 0
+    return r.fun
 
 
 @pytest.mark.parametrize("seed,B,m,nv", [(0, 8, 8, 16), (1, 4, 16, 24)])
 def test_megakernel_matches_oracle(seed, B, m, nv):
-    from scipy.optimize import linprog
-
     key = jax.random.PRNGKey(seed)
-    A, b, c, lo, hi, _, _ = make_random_batch(key, B, m, nv)
-    res = solve_batch_pallas(A, b, c, lo, hi, interpret=True)
-    status = np.asarray(res.status)
-    verified = np.asarray(res.verified)
-    assert (status == int(Status.OPTIMAL)).all()
-    assert verified.all()
-    An, bn, cn, lon, hin = map(np.asarray, (A, b, c, lo, hi))
+    A, b, c, lo, hi, _, _ = map(np.asarray, make_random_batch(key, B, m, nv))
+    res = solve_batch_certified(A, b, c, lo, hi, **TRITON)
+    assert (np.asarray(res.status) == int(Status.OPTIMAL)).all()
+    assert not np.asarray(res.host_resolved).any()  # the kernel certified all
     for i in range(B):
-        bounds = [
-            (lon[i, j] if np.isfinite(lon[i, j]) else None,
-             hin[i, j] if np.isfinite(hin[i, j]) else None)
-            for j in range(cn.shape[1])
-        ]
-        r = linprog(cn[i], A_eq=An[i], b_eq=bn[i], bounds=bounds, method="highs")
-        assert r.status == 0
-        assert abs(float(res.obj[i]) - r.fun) <= 1e-9 * (1 + abs(r.fun)), i
+        ref = _highs(A[i], b[i], c[i], lo[i], hi[i])
+        assert abs(float(res.obj[i]) - ref) <= 1e-9 * (1 + abs(ref)), i
 
 
 def test_megakernel_agrees_with_xla_engine():
@@ -40,7 +49,7 @@ def test_megakernel_agrees_with_xla_engine():
     key = jax.random.PRNGKey(7)
     args = make_random_batch(key, 6, 8, 12)
     A, b, c, lo, hi, vstat0, basis0 = args
-    res = solve_batch_pallas(A, b, c, lo, hi, interpret=True)
+    res = solve_batch_certified(*map(np.asarray, args[:5]), **TRITON)
     ref = solve_batch(*args, opts=SolverOptions())
     np.testing.assert_allclose(
         np.asarray(res.obj), np.asarray(ref.obj), rtol=1e-9, atol=1e-9
@@ -50,7 +59,8 @@ def test_megakernel_agrees_with_xla_engine():
 @pytest.mark.parametrize("seed", range(3))
 def test_megakernel_canonical_layout(seed):
     """Kernel on canonicalize() output (slack block at slack0=nv, inert
-    padding after): free vars, at-upper vars, Eq/Ge rows, maximize."""
+    padding after — the wrapper moves it behind its own padding rows):
+    free vars, at-upper vars, Eq/Ge rows, maximize."""
     from minilp_tpu.canonical import canonicalize
     from .oracle import random_problem, solve_with_oracle
 
@@ -62,164 +72,89 @@ def test_megakernel_canonical_layout(seed):
     if outcome != "optimal":
         pytest.skip("instance not optimal")
     can = canonicalize(prob, dtype=np.float64)
-    res = solve_batch_pallas(
+    res = solve_batch_certified(
         can.A[None], can.b[None], can.c[None], can.lo[None], can.hi[None],
-        slack0=can.nv, interpret=True, max_iter=4000,
+        slack0=can.nv, max_iter=4000, **TRITON,
     )
-    if not bool(res.verified[0]):
-        pytest.skip("f32 kernel basis unverified on this instance (fallback path)")
+    assert bool(res.verified[0])
     got = float(can.obj_sign * float(res.obj[0]))
     assert abs(got - obj) <= 1e-7 * (1 + abs(obj)), (got, obj)
 
 
-def test_megakernel_driver_fast_path():
-    """use_megakernel='always' end-to-end through Problem.solve (interpret on
-    CPU), including a warm incremental re-solve off the kernel's state."""
-    from minilp_tpu import (
-        ComparisonOp, OptimizationDirection, Problem,
-    )
-    from minilp_tpu.options import SolverOptions
-
-    opts = SolverOptions(use_megakernel="always")
-    prob = Problem(OptimizationDirection.Maximize, options=opts)
-    x = prob.add_var(1.0, (0.0, None))
-    y = prob.add_var(2.0, (0.0, 3.0))
-    prob.add_constraint(x + y, ComparisonOp.Le, 4.0)
-    sol = prob.solve()
-    assert abs(sol.objective() - 7.0) <= 1e-9
-    # warm dual re-solve from the megakernel-built state
-    sol2 = sol.add_constraint(x, ComparisonOp.Le, 0.5)
-    assert abs(sol2.objective() - 6.5) <= 1e-9
+@pytest.mark.parametrize("m,n", [(8, 28), (16, 32), (32, 128), (33, 100),
+                                 (64, 256)])
+def test_padded_dims_powers_of_two(m, n):
+    mp, np_ = bs.padded_dims(m, n)
+    assert mp >= max(m, bs.MIN_DIM) and np_ >= n + (mp - m)
+    assert mp & (mp - 1) == 0 and np_ & (np_ - 1) == 0
+    assert bs.fits(m, n) == (mp <= bs.MAX_ROWS and mp * np_ <= bs.MAX_CELLS)
 
 
-def test_megakernel_warm_start_direct():
-    """Warm-start kernel variant driven directly (no driver fallback to hide
-    errors): re-solving from the optimal state terminates in ~0 pivots, and
-    re-solving after a bound change reaches the new optimum."""
-    from scipy.optimize import linprog
-
-    key = jax.random.PRNGKey(21)
-    A, b, c, lo, hi, _, _ = make_random_batch(key, 2, 8, 16)
-    cold = solve_batch_pallas(A, b, c, lo, hi, interpret=True)
-    assert np.asarray(cold.verified).all()
-    An = np.asarray(A)
-    basis0 = np.asarray(cold.basis)
-    vstat0 = np.asarray(cold.vstat)
-    Binv0 = np.stack([
-        np.linalg.inv(An[i][:, basis0[i]]) for i in range(2)
-    ]).astype(np.float32)
-
-    warm = solve_batch_pallas(
-        A, b, c, lo, hi, interpret=True,
-        warm_state=(basis0, vstat0, Binv0),
-    )
-    assert np.asarray(warm.verified).all()
-    np.testing.assert_allclose(
-        np.asarray(warm.obj), np.asarray(cold.obj), rtol=1e-9, atol=1e-9
-    )
-    assert int(np.asarray(warm.niter).max()) <= 2  # already optimal
-
-    # tighten a box bound and warm re-solve; check against the oracle
-    hi2 = np.asarray(hi).copy()
-    hi2[:, 0] = 0.25
-    vs2 = vstat0.copy()
-    # variable 0 keeps its status unless it now violates the new bound;
-    # re-home it at the tightened bound if it was resting above
-    from minilp_tpu.status import VarStat
-    at_hi = vs2[:, 0] == int(VarStat.AT_UPPER)
-    warm2 = solve_batch_pallas(
-        A, b, c, lo, hi2, interpret=True,
-        warm_state=(basis0, vs2, Binv0),
-    )
-    assert np.asarray(warm2.verified).all()
-    bn, cn, lon = map(np.asarray, (b, c, lo))
+def test_pad_batch_roundtrip_is_inert():
+    """Padding rows/columns carry no information: the padded LP has the same
+    HiGHS optimum, and unpad_result maps a padded basis back exactly."""
+    A, b, c, lo, hi = make_random_batch_host(3, batch=2, m=6, nv=10)
+    Ap, bp, cp, lop, hip = bs.pad_batch(A, b, c, lo, hi, slack0=10)
+    assert Ap.shape == (2, 16, 32)
     for i in range(2):
-        bounds = [
-            (lon[i, j] if np.isfinite(lon[i, j]) else None,
-             hi2[i, j] if np.isfinite(hi2[i, j]) else None)
-            for j in range(cn.shape[1])
-        ]
-        r = linprog(cn[i], A_eq=An[i], b_eq=bn[i], bounds=bounds, method="highs")
-        assert r.status == 0
-        assert abs(float(warm2.obj[i]) - r.fun) <= 1e-9 * (1 + abs(r.fun))
+        f0 = _highs(A[i], b[i], c[i], lo[i], hi[i])
+        f1 = _highs(Ap[i].astype(np.float64), bp[i], cp[i], lop[i], hip[i])
+        assert abs(f0 - f1) <= 1e-5 * (1 + abs(f0))  # f32-rounded copy
+    basis_p = np.broadcast_to(np.arange(10, 26), (2, 16)).astype(np.int32)
+    vstat_p = np.zeros((2, 32), np.int32)
+    basis, vstat = bs.unpad_result(basis_p, vstat_p, 6, 16, 10)
+    np.testing.assert_array_equal(basis, np.broadcast_to(np.arange(10, 16),
+                                                         (2, 6)))
+    assert vstat.shape == (2, 16)
 
 
-def test_megakernel_warm_incremental_sequence():
-    """use_megakernel='always': the whole incremental API (add_constraint,
-    fix/unfix, Gomory cut) runs through WARM megakernel re-solves (interpret
-    mode on CPU) and matches the XLA engine bit-for-bit on objectives."""
-    from minilp_tpu import ComparisonOp, OptimizationDirection, Problem
-    from minilp_tpu.options import SolverOptions
+@pytest.mark.parametrize("m,n", [(16, 32), (32, 128), (64, 256)])
+def test_kernel_lowers_to_triton(m, n):
+    """The kernel cross-lowers for CUDA to one Triton custom call at each
+    power-of-two width (every primitive has a Triton rule); what ptxas says
+    of it shows only on the card."""
+    from jax import export
 
-    def drive(opts):
-        prob = Problem(OptimizationDirection.Maximize, options=opts)
-        x = prob.add_var(3.0, (0.0, None))
-        y = prob.add_var(2.0, (0.0, None))
-        prob.add_constraint(x + y, ComparisonOp.Le, 4.0)
-        prob.add_constraint(x + 3.0 * y, ComparisonOp.Le, 6.0)
-        sol = prob.solve()
-        objs = [sol.objective()]
-        sol = sol.add_constraint(x - y, ComparisonOp.Le, 1.0)
-        objs.append(sol.objective())
-        sol = sol.fix_var(y, 1.0)
-        objs.append(sol.objective())
-        changed, sol = sol.unfix_var(y)
-        objs.append(sol.objective())
-        # fresh solve with a fractional BASIC optimum for the Gomory cut
-        # (presolve off: a singleton row would be absorbed into the bound,
-        # leaving the variable non-basic at its bound)
-        import dataclasses
-
-        opts2 = dataclasses.replace(opts, presolve=False)
-        p2 = Problem(OptimizationDirection.Maximize, options=opts2)
-        u = p2.add_var(3.0, (0.0, None))
-        v = p2.add_var(2.0, (0.0, None))
-        p2.add_constraint(2.0 * u + 2.0 * v, ComparisonOp.Le, 3.0)
-        p2.add_constraint(u - v, ComparisonOp.Le, 0.25)
-        # unique optimum (u, v) = (0.875, 0.625): u basic and fractional
-        s2 = p2.solve().add_gomory_cut(u)
-        objs.append(s2.objective())
-        return objs
-
-    mega = drive(SolverOptions(use_megakernel="always"))
-    xla = drive(SolverOptions(use_megakernel="never"))
-    np.testing.assert_allclose(mega, xla, rtol=1e-9, atol=1e-9)
+    f32 = lambda *s: jax.ShapeDtypeStruct(s, jnp.float32)
+    with jax.enable_x64(False):
+        exp = export.export(
+            jax.jit(lambda *a: bs.simplex_kernel_call(
+                *a, slack0=n - m, max_iter=2000)),
+            platforms=("cuda",),
+            disabled_checks=[export.DisabledSafetyCheck.custom_call(
+                "__gpu$xla.gpu.triton")],
+        )(f32(4, m, n), f32(4, m), f32(4, n), f32(4, n), f32(4, n))
+    text = exp.mlir_module()
+    assert text.count("__gpu$xla.gpu.triton") == 1
+    assert "name = \"batched_simplex\"" in text or "batched_simplex" in text
 
 
-def test_solve_batch_certified_all_lanes():
+@pytest.mark.parametrize("route", ["xla", "triton"])
+def test_solve_batch_certified_all_lanes(route):
     """solve_batch_certified returns an all-verified batch (host fallback
-    covers any lane the f32 kernel could not certify)."""
-    from minilp_tpu.parallel.batched import solve_batch_certified
-
+    covers any lane the f32 iterate could not certify)."""
     key = jax.random.PRNGKey(11)
-    A, b, c, lo, hi, _, _ = make_random_batch(key, 8, 8, 16)
-    res = solve_batch_certified(A, b, c, lo, hi)
+    A, b, c, lo, hi, _, _ = map(np.asarray, make_random_batch(key, 8, 8, 16))
+    res = solve_batch_certified(A, b, c, lo, hi, route=route,
+                                interpret=route == "triton")
     assert np.asarray(res.verified).all()
     assert (np.asarray(res.status) == int(Status.OPTIMAL)).all()
     # exact vertex consistency: A x = b and c·x = obj in f64
-    An, bn, cn = map(np.asarray, (A, b, c))
     xn = np.asarray(res.x)
-    resid = np.abs(np.einsum("bmn,bn->bm", An, xn) - bn).max()
+    resid = np.abs(np.einsum("bmn,bn->bm", A, xn) - b).max()
     assert resid < 1e-9
     np.testing.assert_allclose(
-        np.einsum("bn,bn->b", cn, xn), np.asarray(res.obj), rtol=1e-12, atol=1e-12
+        np.einsum("bn,bn->b", c, xn), np.asarray(res.obj), rtol=1e-12,
+        atol=1e-12
     )
 
 
 def test_megakernel_envelope_64x256():
-    # the full "m, n <= 256" envelope of BASELINE config 3
-    from scipy.optimize import linprog
-
-    key = jax.random.PRNGKey(5)
-    A, b, c, lo, hi, _, _ = make_random_batch(key, 4, 64, 192)  # n = 256
-    res = solve_batch_pallas(A, b, c, lo, hi, interpret=True, max_iter=4000)
-    assert np.asarray(res.verified).all()
-    An, bn, cn, lon, hin = map(np.asarray, (A, b, c, lo, hi))
-    for i in range(4):
-        bounds = [
-            (lon[i, j] if np.isfinite(lon[i, j]) else None,
-             hin[i, j] if np.isfinite(hin[i, j]) else None)
-            for j in range(cn.shape[1])
-        ]
-        r = linprog(cn[i], A_eq=An[i], b_eq=bn[i], bounds=bounds, method="highs")
-        assert abs(float(res.obj[i]) - r.fun) <= 1e-8 * (1 + abs(r.fun))
+    # the kernel's full envelope: padded 64×256
+    A, b, c, lo, hi, _, _ = map(
+        np.asarray, make_random_batch(jax.random.PRNGKey(5), 2, 64, 192))
+    res = solve_batch_certified(A, b, c, lo, hi, max_iter=4000, **TRITON)
+    assert not np.asarray(res.host_resolved).any()
+    for i in range(2):
+        ref = _highs(A[i], b[i], c[i], lo[i], hi[i])
+        assert abs(float(res.obj[i]) - ref) <= 1e-8 * (1 + abs(ref))

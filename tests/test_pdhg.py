@@ -220,9 +220,8 @@ def test_pdhg_batched_vmap():
 
 
 def test_pdhg_chunked_launches_match_single():
-    """Warm re-entry through `state0`/`stop_at` (the TPU chunked-launch
-    path — a single long while_loop execution faults this machine's TPU
-    worker) reproduces the single-launch trajectory: the state round-trips
+    """Warm re-entry through `state0`/`stop_at` (the crossover's chunked
+    device stage) reproduces the single-launch trajectory: the state round-trips
     through the original-space rescale exactly up to f64 rounding."""
     import jax.numpy as jnp
 

@@ -1,5 +1,6 @@
 """EP-analog scheduling gate (SURVEY.md §3.3 EP row): size bucketing +
-difficulty-sorted packing, interpret mode on CPU, scipy-HiGHS oracle."""
+difficulty-sorted lane order over both batched routes (the Triton kernel in
+interpret mode on CPU), scipy-HiGHS oracle."""
 
 import numpy as np
 import pytest
@@ -9,7 +10,7 @@ from minilp_tpu.parallel.scheduling import (
     LPResult,
     difficulty_scores,
     pad_lp,
-    solve_batch_packed_sorted,
+    solve_batch_sorted,
     solve_heterogeneous,
     sort_for_packing,
 )
@@ -38,10 +39,9 @@ def test_difficulty_scores_shape_and_determinism():
 
 
 def test_difficulty_scores_accepts_padded_columns():
-    """Layout [structural | identity slack | pad] (what `_assemble_packed`
-    produces) must score identically to the unpadded layout when slack0 is
-    given explicitly — the sort_packs path of the pipelined driver feeds
-    padded batches."""
+    """Layout [structural | identity slack | pad] (the canonical form's
+    column alignment) must score identically to the unpadded layout when
+    slack0 is given explicitly."""
     A, b, c, lo, hi = make_random_batch_host(7, batch=6, m=8, nv=12)
     s_ref = difficulty_scores(A, b, c, lo, hi)
     pad = 4
@@ -58,7 +58,7 @@ def test_sorted_packing_matches_unsorted_and_oracle():
     """Sorting must be answer-invariant: lane i of the sorted solve is the
     same LP i's certified answer, matching the oracle."""
     A, b, c, lo, hi = make_random_batch_host(11, batch=8, m=8, nv=16)
-    res = solve_batch_packed_sorted(A, b, c, lo, hi, pack=4, interpret=True)
+    res = solve_batch_sorted(A, b, c, lo, hi, route="triton", interpret=True)
     assert (np.asarray(res.status) == int(Status.OPTIMAL)).all()
     assert np.asarray(res.verified).all()
     for i in range(8):
@@ -91,7 +91,7 @@ def test_heterogeneous_sizes_match_oracle():
         for i in range(count):
             lps.append((A[i], b[i], c[i], lo[i], hi[i]))
     results = solve_heterogeneous(
-        lps, pack=4, row_granule=4, col_granule=8, interpret=True,
+        lps, row_granule=4, col_granule=8, route="triton", interpret=True,
     )
     assert len(results) == len(lps)
     for lp, res in zip(lps, results):
@@ -109,10 +109,10 @@ def test_heterogeneous_sizes_match_oracle():
 
 
 def test_heterogeneous_single_bucket_lane_padding():
-    """Lane count not divisible by pack: replica lanes are dropped."""
+    """One bucket through the plain route: answers in the original order."""
     A, b, c, lo, hi = make_random_batch_host(5, batch=3, m=6, nv=10)
     lps = [(A[i], b[i], c[i], lo[i], hi[i]) for i in range(3)]
-    results = solve_heterogeneous(lps, pack=4, interpret=True)
+    results = solve_heterogeneous(lps, route="xla")
     assert len(results) == 3
     for i, res in enumerate(results):
         r = _oracle(A[i], b[i], c[i], lo[i], hi[i])
@@ -120,13 +120,15 @@ def test_heterogeneous_single_bucket_lane_padding():
 
 
 def test_pipelined_sorted_packs_matches_oracle():
-    """sort_packs=True must be answer-invariant in the pipelined driver:
-    lane i of each returned batch is LP i's certified answer."""
-    from minilp_tpu.parallel.batched import solve_batches_pipelined
-
+    """Sorted order (scores from last round's pivot counts) must be
+    answer-invariant: lane i of each result is LP i's certified answer."""
     batches = [make_random_batch_host(200 + k, batch=8, m=8, nv=16)
                for k in range(2)]
-    results = solve_batches_pipelined(batches, pack=4, sort_packs=True)
+    results = []
+    for batch in batches:
+        first = solve_batch_sorted(*batch, route="xla")
+        results.append(solve_batch_sorted(*batch, scores=first.niter,
+                                          route="triton", interpret=True))
     assert len(results) == 2
     for (A, b, c, lo, hi), res in zip(batches, results):
         assert np.asarray(res.verified).all()
@@ -144,8 +146,8 @@ def test_heterogeneous_infeasible_lane():
     Ai = np.array([[1.0, 1.0]])
     lps.append((Ai, np.array([-1.0]), np.array([1.0, 0.0]),
                 np.zeros(2), np.full(2, np.inf), 1))
-    results = solve_heterogeneous(lps, pack=4, row_granule=4, col_granule=4,
-                                  interpret=True)
+    results = solve_heterogeneous(lps, row_granule=4, col_granule=4,
+                                  route="triton", interpret=True)
     assert results[2].status == int(Status.INFEASIBLE)
     for i in range(2):
         r = _oracle(A[i], b[i], c[i], lo[i], hi[i])

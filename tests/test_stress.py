@@ -13,20 +13,18 @@ from minilp_tpu.api import ComparisonOp, LinearExpr, Variable
 from .oracle import random_problem, solve_with_oracle
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_incremental_stress(seed):
-    _run_incremental_stress(seed, trials=12, steps=8, options=None)
-
-
-def test_incremental_stress_megakernel():
-    """Same interleaving gate forced through the warm Pallas megakernel path
-    (interpret mode on CPU): cold solves and every re-solve go through the
-    f32 kernel + f64 certification + fallback machinery."""
+@pytest.mark.parametrize("seed,trials,steps,f32_cold", [
+    pytest.param(0, 12, 8, False, id="0"),
+    pytest.param(1, 12, 8, False, id="1"),
+    # cold solves through the f32-iterate + f64-certify route, so every
+    # warm re-solve starts from a state rebuilt off a certified f32 basis
+    pytest.param(7, 4, 5, True, id="7-f32-cold"),
+])
+def test_incremental_stress(seed, trials, steps, f32_cold):
     from minilp_tpu.options import SolverOptions
 
-    _run_incremental_stress(
-        7, trials=4, steps=5, options=SolverOptions(use_megakernel="always")
-    )
+    options = SolverOptions(f32_midsize="always") if f32_cold else None
+    _run_incremental_stress(seed, trials=trials, steps=steps, options=options)
 
 
 def _run_incremental_stress(seed, trials, steps, options):
